@@ -1,7 +1,7 @@
 """CLI front-end: pomfret-tpu methphase | varhaptag | report.
 
 Same flags and defaults as the reference CLI (cli.c:28-74, 245-446) so
-configurations are drop-in, plus TPU-specific extras (--engine).
+configurations are drop-in, plus extras (--engine, warmup, bam2cram).
 """
 from __future__ import annotations
 
@@ -43,7 +43,8 @@ def _add_methphase_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--chunk-stride", dest="chunk_stride", type=int, default=1000000)
     p.add_argument("-v", dest="verbose", action="count", default=0)
     p.add_argument("--engine", choices=["auto", "host", "jax"], default="auto",
-                   help="per-gap engine: host oracle or batched TPU engine")
+                   help="per-gap engine: host oracle or batched device "
+                        "engine (auto: device engine on a GPU)")
     p.add_argument("--resume", action="store_true",
                    help="resume from <prefix>.mp.manifest.jsonl (skip completed gaps)")
     p.add_argument("--profile", action="store_true",
@@ -161,8 +162,8 @@ def main(argv=None) -> int:
     _add_methphase_args(p_rep)
     p_ms = sub.add_parser("methstat", help="dump usable methmer sites per gap")
     _add_methphase_args(p_ms)
-    # TPU-era extra: pre-compile the device engine programs for a dataset
-    p_wu = sub.add_parser("warmup", help="pre-compile TPU engine programs "
+    # extra: pre-compile the device engine programs for a dataset
+    p_wu = sub.add_parser("warmup", help="pre-compile device engine programs "
                           "for this dataset (persistent compile cache)")
     _add_methphase_args(p_wu)
     p_vh = sub.add_parser("varhaptag", help="haplotag reads from a phased VCF")
@@ -174,7 +175,7 @@ def main(argv=None) -> int:
     p_vh.add_argument("--dont-write-bam", dest="write_bam", action="store_false")
     p_vh.add_argument("--ref-fasta", dest="ref_fasta", default=None,
                       help="reference FASTA for CRAM input")
-    # TPU-era extra (no reference equivalent): BAM -> CRAM 3.0 conversion
+    # extra (no reference equivalent): BAM -> CRAM 3.0 conversion
     p_bc = sub.add_parser("bam2cram", help="convert BAM to CRAM 3.0 + .crai")
     p_bc.add_argument("bam")
     p_bc.add_argument("cram")

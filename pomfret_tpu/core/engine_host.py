@@ -2,7 +2,7 @@
 
 Implements blockjoin.c:3453-3810 + 3958-4214 with exact float32 semantics:
 per-read haplotype scores are float32 sums of count ratios accumulated in
-methmer order, matching the C accumulation order bit-for-bit. The TPU device
+methmer order, matching the C accumulation order bit-for-bit. The device
 engine (pomfret_tpu/kernels/engine_jax.py) is validated against this oracle.
 
 Score quirk preserved: score_l counts found-with-nonzero-sum entries ONCE and

@@ -6,7 +6,7 @@ Reimplements blockjoin.c:3106-3567:
   variable-length directional windows (up to k sites within k_span bp);
 - get_mmr_of_read (3357): align a read's calls to the site grid and emit one
   packed u32 methmer per in-range site ('-' for sites the read lacks);
-- count tables are NOT kept as mutable dicts here: in the TPU-native design
+- count tables are NOT kept as mutable dicts here: in the device-engine design
   counts are a pure function of the current tag vector (see kernels/).
 
 Quirks preserved:

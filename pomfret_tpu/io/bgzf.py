@@ -6,7 +6,7 @@ FEXTRA 'BC' subfield carrying the compressed block size; random access uses
 virtual offsets voffset = (compressed_offset << 16) | within_block_offset.
 
 The decompression/compression hot loops release the GIL inside zlib, so a
-thread pool gives real parallelism (the TPU-era analog of htslib's bgzf
+thread pool gives real parallelism (the analog of htslib's bgzf
 worker pool); a C++ fast path can replace this later without API change.
 """
 from __future__ import annotations

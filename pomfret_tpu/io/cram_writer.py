@@ -2,7 +2,7 @@
 
 The reference never writes CRAM (output_modify_bam writes BAM,
 blockjoin.c:3022-3103); this writer exists (a) to round-trip-validate the
-CRAM reader without htslib in the environment, and (b) as a TPU-era extra
+CRAM reader without htslib in the environment, and (b) as an extra
 (`bam_to_cram`) so pipelines can archive inputs compactly.
 
 Encoding choices (all decoded by io/cram.py and any spec-conforming reader):

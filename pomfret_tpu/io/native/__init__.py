@@ -43,6 +43,13 @@ def _build() -> bool:
     return False
 
 
+def _unavailable(why: str) -> None:
+    from ...utils.log import log_warn
+    log_warn("native", f"C++ IO fast paths unavailable ({why}); "
+                       "using the Python paths")
+    return None
+
+
 def get_lib() -> Optional[ctypes.CDLL]:
     global _LIB, _TRIED
     with _LOCK:
@@ -58,11 +65,18 @@ def get_lib() -> Optional[ctypes.CDLL]:
         keep_memory_resident()
         if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
             if not _build():
-                return None
+                return _unavailable("the C++ build failed")
         try:
             lib = ctypes.CDLL(_SO)
         except OSError:
-            return None
+            # a library built on another machine can link a shared library
+            # this one lacks (libdeflate): rebuild here once
+            if not _build():
+                return _unavailable("the C++ build failed")
+            try:
+                lib = ctypes.CDLL(_SO)
+            except OSError as e:
+                return _unavailable(str(e))
         i64p = ctypes.POINTER(ctypes.c_int64)
         u8p = ctypes.POINTER(ctypes.c_uint8)
         lib.bgzf_scan_blocks.restype = ctypes.c_int64

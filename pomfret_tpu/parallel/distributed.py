@@ -20,7 +20,7 @@ import numpy as np
 
 import jax
 
-# collective observability (SCALING.json v2, VERDICT r4 #4): cumulative
+# collective observability (tools/bench_scaling.py, VERDICT r4 #4): cumulative
 # all-gather wall seconds and payload bytes THIS process contributed.
 # Dumped with POMFRET_STATS_OUT so the scaling harness can decompose
 # distribution overhead instead of publishing un-interpretable walls.

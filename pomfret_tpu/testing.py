@@ -161,47 +161,49 @@ class SynthRegion:
         if cfg.nocall > 0:
             nc = self.rng.random(len(states)) < cfg.nocall
             quals = np.where(nc, 128, quals)
-        pos2qual = {int(s): int(q) for s, q in zip(sites, quals)}
 
         # MM/ML over the ORIGINAL read orientation; clips/insertions are
-        # C-free, so every origin C is a CpG C (possibly trailing/unaligned)
+        # C-free, so every origin C is a CpG C (possibly trailing/unaligned).
+        # A C is called when it is a CpG C whose stored position aligns to a
+        # reference CpG site of this read; MM deltas count the skipped Cs.
         stored = seq
         origin = revcomp(stored) if reverse else stored
-        site_of_origin_c = {}
-        for j in range(L - 1):
-            if origin[j] == "C" and origin[j + 1] == "G":
-                sp = (L - 2 - j) if reverse else j  # stored CpG-C position
-                if ref_of[sp] >= 0:
-                    site_of_origin_c[j] = int(ref_of[sp])
-        all_c = [j for j in range(L) if origin[j] == "C"]
-        deltas: List[int] = []
-        mlvals: List[int] = []
-        skipped = 0
-        for ci in all_c:
-            site = site_of_origin_c.get(ci)
-            if site is None or site not in pos2qual:
-                skipped += 1
-                continue
-            deltas.append(skipped)
-            mlvals.append(pos2qual[site])
-            skipped = 0
-        mm = "C+m?," + ",".join(str(d) for d in deltas) + ";" if deltas else "C+m?;"
+        o = np.frombuffer(origin.encode(), dtype=np.uint8)
+        c_pos = np.flatnonzero(o == ord("C"))
+        is_cg = np.zeros(len(c_pos), dtype=bool)
+        inner = c_pos < L - 1
+        is_cg[inner] = o[c_pos[inner] + 1] == ord("G")
+        sp = (L - 2 - c_pos) if reverse else c_pos
+        ref_c = np.where(is_cg, ref_of[np.clip(sp, 0, L - 1)], -1)
+        k = np.searchsorted(sites, ref_c)
+        k_ok = np.minimum(k, max(len(sites) - 1, 0))
+        called = (ref_c >= 0) & (k < len(sites))
+        if len(sites):
+            called &= sites[k_ok] == ref_c
+        called_at = np.flatnonzero(called)
+        deltas = np.diff(called_at, prepend=-1) - 1
+        mlvals = [int(q) for q in quals[k_ok[called_at]]] if len(sites) else []
+        mm = ("C+m?," + ",".join(str(int(d)) for d in deltas) + ";"
+              if len(deltas) else "C+m?;")
 
         # MD: walk aligned ops against the reference
         md_parts: List[str] = []
         run = 0
         rp, i = start, 0
+        sq = np.frombuffer(seq.encode(), dtype=np.uint8)
         for op, ln in cigar:
             if op == "S" or op == "I":
                 i += ln
             elif op == "M":
-                for k in range(ln):
-                    if seq[i + k] == self.ref[rp + k]:
-                        run += 1
-                    else:
-                        md_parts.append(str(run))
-                        md_parts.append(self.ref[rp + k])
-                        run = 0
+                rf = np.frombuffer(self.ref[rp: rp + ln].encode(),
+                                   dtype=np.uint8)
+                prev = -1
+                for x in np.flatnonzero(sq[i: i + ln] != rf):
+                    md_parts.append(str(run + int(x) - prev - 1))
+                    md_parts.append(self.ref[rp + int(x)])
+                    run = 0
+                    prev = int(x)
+                run += ln - prev - 1
                 i += ln
                 rp += ln
             elif op == "D":
@@ -486,6 +488,43 @@ def make_multichrom_multigap_scenario(tmpdir: str, n_chroms: int = 2,
     with gzip.open(vcf, "wt") as f:
         f.write("\n".join(lines) + "\n")
     return bam, vcf, truths
+
+
+# Per-chromosome shapes of the benchmark dataset (make_scale_dataset): total
+# coverage 20-57x, CpG density 100-200 bp, 20 kb reads, hac/sup-like noise.
+SCALE_CHROMS = [
+    {"read_stagger": 700, "cpg_every": 100, "read_len": 20_000},
+    {"read_stagger": 1000, "cpg_every": 120, "read_len": 20_000,
+     "noise": 0.02, "nocall": 0.02},
+    {"read_stagger": 1400, "cpg_every": 160, "read_len": 20_000},
+    {"read_stagger": 2000, "cpg_every": 200, "read_len": 20_000,
+     "noise": 0.03, "nocall": 0.03},
+]
+# ~222x: a gap window holds ~1.6k reads, the WGS-60x window size
+# (~1,500 reads per +-50 kb window; BASELINE.md)
+DENSE_CHROM = {"read_stagger": 180, "cpg_every": 120, "read_len": 20_000,
+               "noise": 0.02}
+
+
+def scale_dataset_params(scale: int = 1) -> dict:
+    """Parameters of the benchmark dataset at a scale: 4 chromosomes x
+    50*scale gaps (scale 1: 200 gaps, ~28k reads); scale > 1 adds the
+    dense DENSE_CHROM chromosome."""
+    per_chrom = list(SCALE_CHROMS)
+    if scale > 1:
+        per_chrom.append(DENSE_CHROM)
+    return dict(n_blocks=50 * scale + 1, block_len=60_000, gap_len=30_000,
+                per_chrom=per_chrom)
+
+
+def make_scale_dataset(tmpdir: str, params: dict, bam_threads: int = 1):
+    """Write the dataset of `params` (scale_dataset_params, or any
+    make_multichrom_multigap_scenario kwargs) as scale.bam +
+    multichrom.vcf.gz. Seeded: the same params give the same files.
+    Returns (bam, vcf, n_gaps)."""
+    bam, vcf, _ = make_multichrom_multigap_scenario(
+        tmpdir, bam_threads=bam_threads, bam_name="scale.bam", **params)
+    return bam, vcf, len(params["per_chrom"]) * (params["n_blocks"] - 1)
 
 
 def make_multi_block_scenario(tmpdir: str, n_blocks: int = 6,

@@ -97,7 +97,7 @@ def test_methphase_untagged_jax_matches_host(tmp_path):
 def test_warmup_subcommand(tmp_path, monkeypatch):
     """warmup pre-compiles the engine programs real runs will request; on
     the CPU backend it must exercise the full load+pack+dispatch path when
-    the engine is forced to jax (vmap body compiles; fused stays off)."""
+    the engine is forced to jax (the vmapped XLA engine compiles)."""
     from pomfret_tpu.testing import make_two_block_scenario
     bam, vcf, truth = make_two_block_scenario(str(tmp_path))
     prefix = str(tmp_path / "wu")

@@ -349,7 +349,7 @@ def test_rans4x8_native_matches_python():
 
 
 def test_bam2cram_cli_and_varhaptag_on_cram(scenario, tmp_path):
-    """bam2cram subcommand (TPU-era extra) + varhaptag accepting CRAM input;
+    """bam2cram subcommand (an extra) + varhaptag accepting CRAM input;
     the varhaptag TSV must match the BAM run's."""
     from pomfret_tpu.cli import main as cli_main
     d, bam, vcf, truth = scenario

@@ -42,9 +42,9 @@ def run_ref(ref_binary, args, cwd):
     return r
 
 
-def assert_outputs_match(p_ref: str, p_tpu: str, exts=(".mp.gtf", ".mp.vcf")):
+def assert_outputs_match(p_ref: str, p_ours: str, exts=(".mp.gtf", ".mp.vcf")):
     for ext in exts:
-        with open(p_ref + ext, "rb") as f1, open(p_tpu + ext, "rb") as f2:
+        with open(p_ref + ext, "rb") as f1, open(p_ours + ext, "rb") as f2:
             a, b = f1.read(), f2.read()
         assert a == b, (f"{ext} differs from the reference binary "
                         f"({len(a)} vs {len(b)} bytes)")
@@ -59,14 +59,14 @@ def _methphase_pair(ref_binary, d, bam, vcf, extra=(), write_bam=False):
     if write_bam:
         args.append("--write-bam")
     p_ref = os.path.join(d, "ref")
-    p_tpu = os.path.join(d, "tpu")
+    p_ours = os.path.join(d, "ours")
     run_ref(ref_binary, ["methphase", "-o", p_ref, *args, bam], cwd=d)
-    assert cli_main(["methphase", "-o", p_tpu, *args, bam]) == 0
-    assert_outputs_match(p_ref, p_tpu)
+    assert cli_main(["methphase", "-o", p_ours, *args, bam]) == 0
+    assert_outputs_match(p_ref, p_ours)
     if write_bam:
-        assert hp_map(p_ref + ".mp.bam") == hp_map(p_tpu + ".mp.bam"), \
+        assert hp_map(p_ref + ".mp.bam") == hp_map(p_ours + ".mp.bam"), \
             "rewritten HP tags differ from the reference binary"
-    return p_ref, p_tpu
+    return p_ref, p_ours
 
 
 def test_differential_cis_join(ref_binary, tmp_path):
@@ -89,9 +89,9 @@ def test_differential_no_join(ref_binary, tmp_path):
     d = str(tmp_path)
     bam, vcf, truth = make_two_block_scenario(
         d, uninformative=(60_000, 140_000))
-    p_ref, p_tpu = _methphase_pair(ref_binary, d, bam, vcf,
+    p_ref, p_ours = _methphase_pair(ref_binary, d, bam, vcf,
                                    extra=("-c", "50"))
-    gtf = open(p_tpu + ".mp.gtf").read()
+    gtf = open(p_ours + ".mp.gtf").read()
     assert gtf.count("exon") == 2, f"expected an unjoined pair: {gtf}"
 
 
@@ -130,12 +130,12 @@ def test_differential_merged_gaps_recovery(ref_binary, tmp_path):
     d = str(tmp_path)
     bam, vcf, truth = make_multi_block_scenario(
         d, n_blocks=4, block_len=32_000, gap_len=20_000)
-    p_ref, p_tpu = _methphase_pair(ref_binary, d, bam, vcf,
+    p_ref, p_ours = _methphase_pair(ref_binary, d, bam, vcf,
                                    extra=("-c", "50"), write_bam=True)
     # the scenario must actually fire the dropped-sliver branch: re-phased
     # sliver variants get PS -> "." and GT "x|y" -> "x/y" (status 2)
     n_dropped_rewrites = 0
-    with open(p_tpu + ".mp.vcf") as f:
+    with open(p_ours + ".mp.vcf") as f:
         for line in f:
             if line.startswith("#"):
                 continue
@@ -176,12 +176,12 @@ def test_differential_varhaptag_clips_indels(ref_binary, tmp_path):
         d, tagged=False, cfg=SynthConfig(seed=23),
         frac_clipped=0.25, frac_indel=0.25)
     out_ref = os.path.join(d, "refci.bam")
-    out_tpu = os.path.join(d, "tpuci.bam")
+    out_ours = os.path.join(d, "oursci.bam")
     run_ref(ref_binary, ["varhaptag", "-o", out_ref, vcf, bam], cwd=d)
-    assert cli_main(["varhaptag", "-o", out_tpu, vcf, bam]) == 0
+    assert cli_main(["varhaptag", "-o", out_ours, vcf, bam]) == 0
     assert open(out_ref + ".varhaptag.tsv").read() == \
-        open(out_tpu + ".varhaptag.tsv").read()
-    assert hp_map(out_ref) == hp_map(out_tpu)
+        open(out_ours + ".varhaptag.tsv").read()
+    assert hp_map(out_ref) == hp_map(out_ours)
 
 
 def _write_block_files(d, truth, chrom="chr1"):
@@ -205,11 +205,11 @@ def test_differential_gtf_blocks(ref_binary, tmp_path):
     bam, vcf, truth = make_two_block_scenario(d)
     gtf, _ = _write_block_files(d, truth)
     args = ["-c", "50", "--gtf", gtf, "--output-tsv"]
-    p_ref, p_tpu = os.path.join(d, "ref"), os.path.join(d, "tpu")
+    p_ref, p_ours = os.path.join(d, "ref"), os.path.join(d, "ours")
     run_ref(ref_binary, ["methphase", "-o", p_ref, *args, bam], cwd=d)
-    assert cli_main(["methphase", "-o", p_tpu, *args, bam]) == 0
-    assert_outputs_match(p_ref, p_tpu, exts=(".mp.gtf", ".mp.tsv"))
-    assert "exon" in open(p_tpu + ".mp.gtf").read()
+    assert cli_main(["methphase", "-o", p_ours, *args, bam]) == 0
+    assert_outputs_match(p_ref, p_ours, exts=(".mp.gtf", ".mp.tsv"))
+    assert "exon" in open(p_ours + ".mp.gtf").read()
 
 
 def test_differential_tsv_blocks_override(ref_binary, tmp_path):
@@ -220,10 +220,10 @@ def test_differential_tsv_blocks_override(ref_binary, tmp_path):
     bam, vcf, truth = make_two_block_scenario(d, tagged=False)
     gtf, tsv = _write_block_files(d, truth)
     args = ["-c", "50", "-u", "--tsv", tsv, "--gtf", gtf, "--vcf", vcf]
-    p_ref, p_tpu = os.path.join(d, "ref"), os.path.join(d, "tpu")
+    p_ref, p_ours = os.path.join(d, "ref"), os.path.join(d, "ours")
     run_ref(ref_binary, ["methphase", "-o", p_ref, *args, bam], cwd=d)
-    assert cli_main(["methphase", "-o", p_tpu, *args, bam]) == 0
-    assert_outputs_match(p_ref, p_tpu, exts=(".mp.gtf", ".mp.vcf"))
+    assert cli_main(["methphase", "-o", p_ours, *args, bam]) == 0
+    assert_outputs_match(p_ref, p_ours, exts=(".mp.gtf", ".mp.vcf"))
 
 
 def test_differential_dbg_and_input_tagging(ref_binary, tmp_path):
@@ -235,15 +235,15 @@ def test_differential_dbg_and_input_tagging(ref_binary, tmp_path):
     d = str(tmp_path)
     bam, vcf, truth = make_two_block_scenario(d, tagged=False)
     args = ["-c", "50", "-u", "-U", "--dbg", "--vcf", vcf]
-    p_ref, p_tpu = os.path.join(d, "ref"), os.path.join(d, "tpu")
+    p_ref, p_ours = os.path.join(d, "ref"), os.path.join(d, "ours")
     run_ref(ref_binary, ["methphase", "-o", p_ref, *args, bam], cwd=d)
-    assert cli_main(["methphase", "-o", p_tpu, *args, bam]) == 0
-    assert_outputs_match(p_ref, p_tpu, exts=(".mp.gtf", ".mp.vcf"))
+    assert cli_main(["methphase", "-o", p_ours, *args, bam]) == 0
+    assert_outputs_match(p_ref, p_ours, exts=(".mp.gtf", ".mp.vcf"))
     a = open(p_ref + ".mp.input_haptag.tsv").read()
-    b = open(p_tpu + ".mp.input_haptag.tsv").read()
+    b = open(p_ours + ".mp.input_haptag.tsv").read()
     assert a == b, "-U input-haptag TSV differs from the reference binary"
     sa = set(open(p_ref + ".mp.dbg.read2tag").read().splitlines())
-    sb = set(open(p_tpu + ".mp.dbg.read2tag").read().splitlines())
+    sb = set(open(p_ours + ".mp.dbg.read2tag").read().splitlines())
     assert sa, "--dbg read2tag dump is empty"
     assert sa == sb, "--dbg read2tag content differs from the reference binary"
 
@@ -252,13 +252,13 @@ def test_differential_varhaptag(ref_binary, tmp_path):
     d = str(tmp_path)
     bam, vcf, truth = make_two_block_scenario(d, tagged=False)
     out_ref = os.path.join(d, "ref.bam")
-    out_tpu = os.path.join(d, "tpu.bam")
+    out_ours = os.path.join(d, "ours.bam")
     run_ref(ref_binary, ["varhaptag", "-o", out_ref, vcf, bam], cwd=d)
-    assert cli_main(["varhaptag", "-o", out_tpu, vcf, bam]) == 0
+    assert cli_main(["varhaptag", "-o", out_ours, vcf, bam]) == 0
     t_ref = open(out_ref + ".varhaptag.tsv").read()
-    t_tpu = open(out_tpu + ".varhaptag.tsv").read()
-    assert t_ref == t_tpu, "varhaptag TSV differs from the reference binary"
-    assert hp_map(out_ref) == hp_map(out_tpu)
+    t_ours = open(out_ours + ".varhaptag.tsv").read()
+    assert t_ref == t_ours, "varhaptag TSV differs from the reference binary"
+    assert hp_map(out_ref) == hp_map(out_ours)
 
 
 def test_differential_report(ref_binary, tmp_path):
@@ -267,9 +267,9 @@ def test_differential_report(ref_binary, tmp_path):
     args = ["-c", "50", "--chunk-size", "40000", "--chunk-stride", "30000",
             "--vcf", vcf]
     p_ref = os.path.join(d, "ref")
-    p_tpu = os.path.join(d, "tpu")
+    p_ours = os.path.join(d, "ours")
     run_ref(ref_binary, ["report", "-o", p_ref, *args, bam], cwd=d)
-    assert cli_main(["report", "-o", p_tpu, *args, bam]) == 0
+    assert cli_main(["report", "-o", p_ours, *args, bam]) == 0
     a = open(p_ref + ".report.tsv").read()
-    b = open(p_tpu + ".report.tsv").read()
+    b = open(p_ours + ".report.tsv").read()
     assert a == b, "report TSV differs from the reference binary"

@@ -55,19 +55,56 @@ def test_mesh_sharded_matches_unsharded():
     assert np.array_equal(out1, out8)
 
 
-def test_mesh_sharded_fused_matches_unsharded(monkeypatch):
-    """The shard_map + whole-loop-kernel mesh path (production on TPU pods)
-    must equal the unsharded vmap engine; forced on via POMFRET_FORCE_FUSED
-    with the kernel in interpret mode on the CPU mesh."""
+def _site_runs(d, rng):
+    """Confine each read's mers to one contiguous site run, as real reads
+    are (a read covers one stretch of the window)."""
+    ids = d.ids.copy()
+    S = ids.shape[1]
+    for r in range(ids.shape[0]):
+        lo = int(rng.integers(0, S - 1))
+        hi = int(rng.integers(lo + 1, min(S, lo + 160) + 1))
+        ids[r, :lo] = -1
+        ids[r, hi:] = -1
+    return type(d)(**{**d.__dict__, "ids": ids})
+
+
+def _with_runs_layout(d):
+    """The same lane in the compact runs layout: each row's covered sites
+    as one 128-aligned block run (blk = id+1, 0 = absent)."""
+    import dataclasses
+    ids = d.dense_ids()
+    R, S = ids.shape
+    b0 = np.full(R, -1, dtype=np.int32)
+    span = np.zeros(R, dtype=np.int64)
+    for r in range(R):
+        cov = np.flatnonzero(ids[r] >= 0)
+        if len(cov):
+            b0[r] = cov[0] // 128
+            span[r] = cov[-1] + 1 - 128 * b0[r]
+    cb = max(128, -(-int(span.max()) // 128) * 128)
+    blk = np.zeros((R, cb), dtype=np.uint8)
+    for r in np.flatnonzero(b0 >= 0):
+        seg = ids[r, 128 * b0[r]: 128 * b0[r] + cb] + 1
+        blk[r, : len(seg)] = seg
+    return dataclasses.replace(d, ids=None, blk=blk, b0=b0, R=R, S=S)
+
+
+@pytest.mark.parametrize("layout", ["dense", "runs"])
+def test_mesh_shard_map_matches_unsharded(layout):
+    """The mesh path (shard_map of the vmapped engine, one while_loop per
+    device shard) equals the unsharded engine on the 8 virtual devices, in
+    both upload layouts."""
     assert len(jax.devices()) == 8
     rng = np.random.default_rng(3)
-    datas = [_rand_gap(rng) for _ in range(16)]
+    datas = [_site_runs(_rand_gap(rng, S=256), rng) for _ in range(16)]
+    if layout == "runs":
+        datas = [_with_runs_layout(d) for d in datas]
     batch = pack_gap_batch(datas, [4] * 16, n_cand=8, pad_g=64)
+    assert (batch.blk is not None) == (layout == "runs")
     out1 = run_gap_batch(batch, max_iters=160)
-    monkeypatch.setenv("POMFRET_FORCE_FUSED", "1")
-    mesh = make_gap_mesh(8)
-    out8 = run_gap_batch(batch, mesh=mesh, max_iters=160)
+    out8 = run_gap_batch(batch, mesh=make_gap_mesh(8), max_iters=160)
     assert np.array_equal(out1, out8)
+    assert (out1[:16] <= 1).sum() > 0
 
 
 def test_graft_entry():
@@ -112,58 +149,47 @@ def test_pipeline_uses_local_mesh_and_matches_single_device(tmp_path,
         assert b1 == b2, f"{ext} differs between 8-device mesh and single"
 
 
-def test_engine_generation_selector(monkeypatch):
-    """POMFRET_FUSED_GEN / legacy POMFRET_FUSED_V2 select the right engine."""
+def test_engine_for_picks_the_layout_entry():
+    """One device engine: the dense entry for a dense batch, the runs
+    entry (in-program densify) for a runs batch."""
     from pomfret_tpu.parallel import batch as B
     rng = np.random.default_rng(7)
-    b = pack_gap_batch([_rand_gap(rng) for _ in range(8)], [4] * 8, n_cand=8)
-    monkeypatch.setenv("POMFRET_FORCE_FUSED", "1")
-    assert B._engine_for(b).func.__name__ == "run_batch_fused3"
-    monkeypatch.setenv("POMFRET_FUSED_GEN", "2")
-    assert B._engine_for(b).func.__name__ == "run_batch_fused2"
-    monkeypatch.setenv("POMFRET_FUSED_GEN", "1")
-    assert B._engine_for(b).func.__name__ == "run_batch_fused"
-    monkeypatch.delenv("POMFRET_FUSED_GEN")
-    monkeypatch.setenv("POMFRET_FUSED_V2", "0")   # legacy: selects v1
-    assert B._engine_for(b).func.__name__ == "run_batch_fused"
-    monkeypatch.delenv("POMFRET_FUSED_V2")
-    assert B._engine_for(b).func.__name__ == "run_batch_fused3"
-    monkeypatch.delenv("POMFRET_FORCE_FUSED")
-    assert B._engine_for(b).func.__name__ == "_run_batch_jit"
+    dense = [_site_runs(_rand_gap(rng, S=256), rng) for _ in range(8)]
+    b_d = pack_gap_batch(dense, [4] * 8, n_cand=8)
+    b_r = pack_gap_batch([_with_runs_layout(d) for d in dense], [4] * 8,
+                         n_cand=8)
+    assert B._engine_for(b_d).func is B._run_batch_jit
+    assert B._engine_for(b_r).func is B._run_batch_runs
+    assert np.array_equal(run_gap_batch(b_d, max_iters=160),
+                          run_gap_batch(b_r, max_iters=160))
 
 
-def test_device_failure_falls_back_to_host_oracle(tmp_path, monkeypatch):
-    """A terminally failed device dispatch must not abort methphase: the
-    group recomputes on the host oracle with identical outputs (elastic
-    recovery, SURVEY.md §5.3)."""
-    from pomfret_tpu.cli import main as cli_main
-    from pomfret_tpu.kernels import engine_jax as ej
+def test_device_failure_propagates(tmp_path):
+    """A failed device dispatch is not recomputed anywhere else: the error
+    propagates, the methphase CLI exits non-zero and writes no outputs."""
+    import os
+    import subprocess
+    import sys
     from pomfret_tpu.testing import make_multi_block_scenario
 
-    d = tmp_path / "fallback"
-    d.mkdir()
-    bam, vcf, truth = make_multi_block_scenario(str(d), n_blocks=3)
-    args = ["-c", "50", "--vcf", vcf, bam]
-
-    p_ok = str(d / "ok")
-    assert cli_main(["methphase", "-o", p_ok, "--engine", "jax", *args]) == 0
-
-    def boom(*a, **k):
-        raise RuntimeError("simulated tunnel death")
-
-    monkeypatch.delenv("POMFRET_NO_HOST_FALLBACK", raising=False)
-    monkeypatch.setattr(ej, "run_gap_batch_async", boom, raising=False)
-    # run_jobs_batched imports it locally from parallel.batch
-    from pomfret_tpu.parallel import batch as pb
-    monkeypatch.setattr(pb, "run_gap_batch_async", boom)
-    p_fb = str(d / "fb")
-    assert cli_main(["methphase", "-o", p_fb, "--engine", "jax", *args]) == 0
-    for ext in (".mp.gtf", ".mp.vcf"):
-        assert open(p_ok + ext, "rb").read() == open(p_fb + ext, "rb").read()
-
-    # with the escape hatch set, the error propagates instead
-    monkeypatch.setenv("POMFRET_NO_HOST_FALLBACK", "1")
-    import pytest as _pytest
-    with _pytest.raises(RuntimeError, match="simulated tunnel death"):
-        cli_main(["methphase", "-o", str(d / "prop"), "--engine", "jax",
-                  *args])
+    bam, vcf, truth = make_multi_block_scenario(str(tmp_path), n_blocks=3)
+    prefix = str(tmp_path / "out")
+    code = (
+        "import sys\n"
+        "from pomfret_tpu.parallel import batch as pb\n"
+        "def boom(*a, **k):\n"
+        "    raise RuntimeError('simulated device failure')\n"
+        "pb.run_gap_batch_async = boom\n"
+        "from pomfret_tpu.cli import main\n"
+        "sys.exit(main(sys.argv[1:]))\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(
+                   [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    r = subprocess.run(
+        [sys.executable, "-c", code, "methphase", "-o", prefix, "-c", "50",
+         "--engine", "jax", "--vcf", vcf, bam],
+        env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode != 0
+    assert "simulated device failure" in r.stderr
+    assert not os.path.exists(prefix + ".mp.gtf")

@@ -1,6 +1,6 @@
 """End-to-end methphase benchmark on a large synthetic scenario.
 
-Generates (once, cached in /tmp/pomfret_e2e) a multi-block diploid scenario
+Generates (once, cached under .bench_data/) a multi-block diploid scenario
 (default 20 blocks / 19 joinable gaps over ~1.8 Mb, ~2.5k reads), then runs
 the FULL pipeline (load gaps -> window loads -> device engine -> decisions
 -> writers) and reports wall time and end-to-end reads/s.
@@ -15,11 +15,16 @@ import pstats
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+
+def _cache_dir(n_blocks: int) -> str:
+    return os.path.join(REPO, ".bench_data", f"e2e_b{n_blocks}")
 
 
 def build(n_blocks: int):
-    cache = f"/tmp/pomfret_e2e_b{n_blocks}"
+    cache = _cache_dir(n_blocks)
     bam = os.path.join(cache, "multi.bam")
     vcf = os.path.join(cache, "multi.vcf.gz")
     if os.path.exists(bam) and os.path.exists(vcf):
@@ -41,7 +46,7 @@ def main():
     args = ap.parse_args()
 
     bam, vcf = build(args.blocks)
-    out = f"/tmp/pomfret_e2e_b{args.blocks}/out"
+    out = os.path.join(_cache_dir(args.blocks), "out")
 
     from pomfret_tpu.cli import main as cli_main
     argv = ["methphase", "-o", out, "-c", "50", "--vcf", vcf,

@@ -1,28 +1,15 @@
-"""Distribution-efficiency measurement (SCALING.json v2).
+"""Distribution overheads of multi-process methphase, on the CPU backend.
 
-BASELINE.json's scaling target is >=80% efficiency at 4 hosts. Real
-multi-host TPU hardware is not reachable from this environment, and
-round 4's wall-based "efficiency lower bound" on the time-shared 2-core
-host was un-interpretable (VERDICT r4 #4) — v2 replaces it with an
-OVERHEAD DECOMPOSITION in which every number is meaningful on this host:
+CPU-mesh runs at 1/2/4 jax.distributed processes (the launcher
+tests/test_multihost_e2e.py pins byte-identity with) measure the partition
+balance (reads/gaps per proc) and the distribution overheads: all-gather
+wall seconds + payload bytes (DIST_STATS), host-0 write serialization
+(writers stage), and per-proc dispatch stats. These costs are
+workload-determined, not device-determined, so every child process runs
+on the CPU backend (JAX_PLATFORMS=cpu) and none of them opens a GPU.
+Prints one JSON object; device walls are not measured here.
 
-- CPU-mesh runs at 1/2/4 jax.distributed processes (the launcher
-  tests/test_multihost_e2e.py pins byte-identity with) measure the
-  partition balance (reads/gaps per proc) and the REAL distribution
-  overheads: all-gather wall seconds + payload bytes (DIST_STATS),
-  host-0 write serialization (writers stage), and per-proc dispatch
-  stats. These costs are workload-determined, not core-count-determined.
-- A real-TPU 1-proc warm run measures the per-host compute wall and the
-  device busy fraction (union of dispatch->drain group intervals /
-  wall).
-- Projected 4-host efficiency = T_comp / (T_comp * imbalance + o) with
-  T_comp = tpu_warm_wall / 4 (each host loads and computes only its own
-  gaps' windows; the work splits by gap with measured imbalance) and
-  o = measured all-gather seconds + host-0 writers seconds. The
-  all-gather term is ALSO projected from payload bytes at 1 GB/s DCN as
-  a cross-check (loopback TCP timing vs bandwidth model).
-
-Usage: python tools/bench_scaling.py [rounds per N] [--no-tpu]
+Usage: python tools/bench_scaling.py [rounds per N]
        (BENCH_SCALE selects the dataset, as in bench.py)
 """
 import json
@@ -32,13 +19,14 @@ import sys
 import tempfile
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def run_n_procs(n_procs, bam, vcf, outdir, salt, round_i):
     env0 = dict(os.environ)
     env0.update({
-        "PYTHONPATH": "/root/repo",
+        "PYTHONPATH": REPO,
         "JAX_PLATFORMS": "cpu",
         "POMFRET_PREFETCH": "0",
     })
@@ -121,96 +109,23 @@ def main():
                     max(gaps) / (sum(gaps) / len(gaps)), 3)
     out["by_procs"] = {str(k): v for k, v in results.items()}
 
-    # ---- real-TPU per-host compute + device busy fraction (1 proc) ----
-    tpu = None
-    if "--no-tpu" not in sys.argv:
-        tpu = measure_tpu_reference()
-        out["tpu_1proc"] = tpu
-
-    # ---- projected 4-host efficiency by decomposition ----
-    # The per-proc allgather walls include BARRIER SKEW: on a time-shared
-    # host, early-finishing procs sit in the collective waiting for
-    # stragglers that are artifacts of core time-sharing, not of the
-    # partition (real hosts have their own cores; balance is the
-    # read_imbalance column). The LAST-arriving proc's wait (min over
-    # procs) bounds the pure collective cost; the payload-bytes model is
-    # the clean cross-check.
+    # per-proc all-gather walls include barrier skew (early procs wait in
+    # the collective for stragglers that time-share this host's cores);
+    # the last-arriving proc's wait (min over procs) bounds the pure
+    # collective cost, and the payload-bytes model cross-checks it
     r4 = results.get(4, {})
     ag_all = r4.get("allgather_s_per_proc", [0.0])
-    ag_s = min(ag_all)
     ag_bytes = max(r4.get("allgather_bytes_per_proc", [0]))
-    writers_s = r4.get("writers_s_host0", 0.0)
-    imb = r4.get("read_imbalance", 1.0)
-    proj = {
-        "formula": "T_comp / (T_comp * read_imbalance + allgather_s + "
-                   "writers_s_host0); T_comp = tpu_warm_wall_s / 4",
-        "allgather_s_last_arrival": round(ag_s, 3),
+    out["overheads_4proc"] = {
+        "allgather_s_last_arrival": round(min(ag_all), 3),
         "allgather_s_per_proc_incl_barrier_skew": [round(x, 3)
                                                    for x in ag_all],
         "allgather_bytes": int(ag_bytes),
-        "allgather_s_at_1GBps_dcn": round(ag_bytes / 1e9, 4),
-        "writers_s_host0": writers_s,
-        "read_imbalance_4proc": imb,
+        "allgather_s_at_1GBps_model": round(ag_bytes / 1e9, 4),
+        "writers_s_host0": r4.get("writers_s_host0", 0.0),
+        "read_imbalance_4proc": r4.get("read_imbalance", 1.0),
     }
-    if tpu is not None:
-        t_comp = tpu["warm_wall_s"] / 4.0
-        proj["t_comp_per_host_s"] = round(t_comp, 3)
-        proj["projected_efficiency_4hosts"] = round(
-            t_comp / (t_comp * imb + ag_s + writers_s), 3)
-        proj["projected_efficiency_4hosts_dcn_model"] = round(
-            t_comp / (t_comp * imb + ag_bytes / 1e9 + writers_s), 3)
-    out["projected_4host"] = proj
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "SCALING.json")
-    with open(path, "w") as f:
-        json.dump(out, f, indent=1)
     print(json.dumps(out))
-
-
-def measure_tpu_reference():
-    """Warm 1-proc methphase on the real chip: wall + device busy fraction
-    (union of the per-group dispatch->drain intervals over the wall; the
-    drain timestamp includes the group's host-side decide, so the fraction
-    is an upper bound — device_wait_s bounds it from below)."""
-    import jax
-    if jax.default_backend() != "tpu":
-        return None
-    from bench import build_scale_dataset
-    from pomfret_tpu.parallel import batch as pb
-    from pomfret_tpu.pipeline import CliOpt, main_blockjoin
-    from pomfret_tpu.utils.stats import reset_stages, stage_report
-    bam, vcf, n_gaps = build_scale_dataset()
-    with tempfile.TemporaryDirectory() as od:
-        opt = CliOpt(fn_vcf=vcf, fn_bam=bam,
-                     output_prefix=os.path.join(od, "o"), engine="jax")
-        main_blockjoin(opt)  # warmup
-        pb.DISPATCH_STATS["group_intervals"] = []
-        reset_stages()
-        t0 = time.time()
-        main_blockjoin(opt)
-        wall = time.time() - t0
-    ivs = sorted([iv for iv in pb.DISPATCH_STATS["group_intervals"]
-                  if iv[1] is not None])
-    busy = 0.0
-    cur_lo = cur_hi = None
-    for lo, hi in ivs:
-        if cur_hi is None or lo > cur_hi:
-            if cur_hi is not None:
-                busy += cur_hi - cur_lo
-            cur_lo, cur_hi = lo, hi
-        else:
-            cur_hi = max(cur_hi, hi)
-    if cur_hi is not None:
-        busy += cur_hi - cur_lo
-    st = stage_report(2)
-    return {
-        "warm_wall_s": round(wall, 2),
-        "n_groups": len(ivs),
-        "device_busy_fraction_upper": round(min(busy / max(wall, 1e-9),
-                                                1.0), 3),
-        "device_wait_s": st.get("device_wait", 0.0),
-        "stages": st,
-    }
 
 
 if __name__ == "__main__":
